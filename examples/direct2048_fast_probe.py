@@ -1,22 +1,18 @@
-"""Measure the round-4 fast HODLR repeat-solve path at 2048^2.
+"""Probe the fast HODLR repeat-solve path at 2048^2.
 
-VERDICT r3 item 4 target: 2048^2 warm repeat <= 1 s to 1e-6 TRUE residual
-within <= 10 GB of stored factors. Two levers over the r3 configuration
-(rank 20, q=0, per-sublattice loop solve -> 7.4 s warm to 4.3e-9):
+Target: 2048^2 warm repeat solve to 1e-6 TRUE residual within <= 10 GB of
+stored factors. Two levers over the plain compressed configuration (rank
+20, q=0, per-sublattice loop solve):
   - stacked sublattice scans (one batched scan instead of 4 sequential),
   - range-finder power iteration (q=1) + rank bump within the byte budget,
     so refinement needs ~2 rounds instead of 8.
 
 Usage: python examples/direct2048_fast_probe.py [N] [rank] [q] [leaf] [stacked]
 
-Round-5 probe results (one v5e chip, 15.75 GB usable HBM): the STACKED
-compressed solve program plans ~4x the scan intermediates and OOMs at
-compile time for every rank tried at 2048^2 (rank 20: 16.45 GB planned,
-over by 0.7 GB; rank 24: 17.3; rank 28: 19.5 — factor itself fits through
-rank 20/q=1 at 8.32 GB stored). The per-sublattice loop solve
-(stacked=0 -> DirectSolver(stacked_solve=False)) fits with room.
-Writes progress to stdout (redirect to a file — never pipe through tail,
-CLAUDE.md).
+The STACKED compressed solve program plans ~4x the scan intermediates of
+the per-sublattice loop solve (stacked=0 -> DirectSolver(stacked_solve=
+False)); which of them fits this card's memory at 2048^2 is not measured
+yet (ROADMAP A4). Writes progress to stdout (redirect to a file).
 """
 
 import sys
@@ -35,8 +31,8 @@ def main():
     import jax
     print(f"devices: {jax.devices()}", flush=True)
 
-    from fdtd2d_tpu.core.scenes import hard_binary_scene
-    from fdtd2d_tpu.fdfd.direct import DirectSolver
+    from fdtd2d.core.scenes import hard_binary_scene
+    from fdtd2d.fdfd.direct import DirectSolver
 
     eps, mu, src = hard_binary_scene(N, seed=3, source_amp=10.0)
     dx, omega = 1e-3, 17e9

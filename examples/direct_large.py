@@ -28,16 +28,16 @@ import time
 
 import numpy as np
 
-from fdtd2d_tpu.utils.cache import enable_compilation_cache
+from fdtd2d.utils.cache import enable_compilation_cache
 
 enable_compilation_cache()
 
-from fdtd2d_tpu import constants  # noqa: E402
-from fdtd2d_tpu.fdfd.direct import DirectSolver  # noqa: E402
+from fdtd2d import constants  # noqa: E402
+from fdtd2d.fdfd.direct import DirectSolver  # noqa: E402
 
 
 def hard_scene(N, seed=7):
-    from fdtd2d_tpu.core.scenes import hard_binary_scene
+    from fdtd2d.core.scenes import hard_binary_scene
 
     return hard_binary_scene(N, seed=seed, source_xy=(N // 3, N // 3))
 
@@ -83,9 +83,9 @@ def main(N=2048, stride=64, mode="checkpointed"):
           f"{trace[-1]:.3e}")
 
     # amortized sweep cost: ONE factorization, B sources, joint refinement
-    # (the interactive-sweep regime VERDICT r3 item 4 targets). The RHS
-    # axis widens the backsolve matmuls' free dimension where the MXU has
-    # idle columns at B=1, so per-source cost drops well below t_warm.
+    # (the interactive-sweep regime). The RHS axis widens the backsolve
+    # matmuls' free dimension, idle at B=1, so per-source cost drops well
+    # below t_warm.
     B = 8
     rng = np.random.default_rng(11)
     srcs = np.zeros((B, N, N), np.complex64)

@@ -10,9 +10,9 @@ Run: python examples/fdtd_video.py
 
 import numpy as np
 
-from fdtd2d_tpu.core import RegionDrawer, material_init, check_courant
-from fdtd2d_tpu.fdtd import simulate, FDTDConfig
-from fdtd2d_tpu.viz import render_video
+from fdtd2d.core import RegionDrawer, material_init, check_courant
+from fdtd2d.fdtd import simulate, FDTDConfig
+from fdtd2d.viz import render_video
 
 
 def main():
@@ -34,7 +34,7 @@ def main():
 
 
 if __name__ == "__main__":
-    from fdtd2d_tpu.utils.cache import enable_compilation_cache
+    from fdtd2d.utils.cache import enable_compilation_cache
 
     enable_compilation_cache()
     main()

@@ -8,7 +8,7 @@ the same 250 mm device => an ~848^2 grid, 11.5x the cells of the reference's
 250^2 scene.
 
 This drives the omega-batched differentiable FDFD stack at that scale on one
-TPU chip (10 forward + 10 adjoint solves at 848^2 per value_and_grad; the
+device (10 forward + 10 adjoint solves at 848^2 per value_and_grad; the
 optimization loop solves at 1e-4, the reported responses at the problem's
 tight tolerance) and writes: the converged low-pass frequency response of
 the CONTINUOUS design, the response of its THRESHOLDED (manufacturable
@@ -23,9 +23,9 @@ import time
 import numpy as np
 import jax.numpy as jnp
 
-from fdtd2d_tpu.apps.inverse_design import (binarize, decade_lowpass_problem,
+from fdtd2d.apps.inverse_design import (binarize, decade_lowpass_problem,
                                             make_response_fn, optimize)
-from fdtd2d_tpu.viz.plots import plot_frequency_response
+from fdtd2d.viz.plots import plot_frequency_response
 
 
 def main(steps: int = 100):
@@ -84,7 +84,7 @@ def main(steps: int = 100):
 
 
 if __name__ == "__main__":
-    from fdtd2d_tpu.utils.cache import enable_compilation_cache
+    from fdtd2d.utils.cache import enable_compilation_cache
 
     enable_compilation_cache()
     main(int(sys.argv[1]) if len(sys.argv) > 1 else 100)

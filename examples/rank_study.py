@@ -13,11 +13,11 @@ jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 
 import jax.numpy as jnp
-from fdtd2d_tpu.ops.helmholtz import make_operator
-from fdtd2d_tpu.fdfd.direct import five_point_coefficients
+from fdtd2d.ops.helmholtz import make_operator
+from fdtd2d.fdfd.direct import five_point_coefficients
 
 N, omega, dx = 1024, 17e9, 1e-3
-from fdtd2d_tpu.core.scenes import hard_binary_scene  # noqa: E402
+from fdtd2d.core.scenes import hard_binary_scene  # noqa: E402
 eps, mu, _ = hard_binary_scene(N, seed=7)
 
 op = make_operator(eps, mu, dx, dx, omega, pml_thickness=40,

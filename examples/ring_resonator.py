@@ -10,10 +10,10 @@ Run: python examples/ring_resonator.py
 import numpy as np
 import jax.numpy as jnp
 
-from fdtd2d_tpu import constants
-from fdtd2d_tpu.core import RegionDrawer, check_resolution
-from fdtd2d_tpu.fdfd import run_fdfd
-from fdtd2d_tpu.viz import plot_Ez
+from fdtd2d import constants
+from fdtd2d.core import RegionDrawer, check_resolution
+from fdtd2d.fdfd import run_fdfd
+from fdtd2d.viz import plot_Ez
 
 
 def main():
@@ -41,7 +41,7 @@ def main():
 
 
 if __name__ == "__main__":
-    from fdtd2d_tpu.utils.cache import enable_compilation_cache
+    from fdtd2d.utils.cache import enable_compilation_cache
 
     enable_compilation_cache()
     main()

@@ -14,17 +14,17 @@ import sys
 
 import numpy as np
 
-from fdtd2d_tpu.utils.cache import enable_compilation_cache
+from fdtd2d.utils.cache import enable_compilation_cache
 
 enable_compilation_cache()
 
 import jax
 import jax.numpy as jnp
 
-from fdtd2d_tpu.models.train import (
+from fdtd2d.models.train import (
     TrainConfig, create_state, restore_checkpoint, compute_scales_host,
     inference)
-from fdtd2d_tpu.models.diffusion import DDPMSchedule
+from fdtd2d.models.diffusion import DDPMSchedule
 
 ckpt_dir = sys.argv[1] if len(sys.argv) > 1 else "runs/ckpt10k_shape"
 data_path = sys.argv[2] if len(sys.argv) > 2 else "runs/data10k_shape.npz"

@@ -27,16 +27,16 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from fdtd2d_tpu.models.diffusion import DDPMSchedule
-from fdtd2d_tpu.models.train import (TrainConfig, create_state, ema_state,
+from fdtd2d.models.diffusion import DDPMSchedule
+from fdtd2d.models.train import (TrainConfig, create_state, ema_state,
                                      inference, regress, restore_checkpoint)
-from fdtd2d_tpu.viz.plots import plot_ref_v_inference, plot_training_curves
+from fdtd2d.viz.plots import plot_ref_v_inference, plot_training_curves
 
 
 def main(data_path, ckpt_dir, eval_dir, out_dir, holdout=64,
          pred_type="epsilon"):
     os.makedirs(out_dir, exist_ok=True)
-    from fdtd2d_tpu.models.datagen import load_dataset
+    from fdtd2d.models.datagen import load_dataset
 
     raw = load_dataset(data_path)  # plain npz, compact npz, or shard dir
     hold = {k: np.asarray(raw[k][-holdout:]) for k in
@@ -152,7 +152,7 @@ def main(data_path, ckpt_dir, eval_dir, out_dir, holdout=64,
     # Bayes-optimal L2 readout is E[x0|scene]; averaging K independent
     # stochastic chains cancels the sampling variance the single-sample
     # readouts carry.
-    from fdtd2d_tpu.models.train import ensemble_inference
+    from fdtd2d.models.train import ensemble_inference
 
     K = 1 if is_reg else 8
     ens = np.asarray(ensemble_inference(
@@ -247,7 +247,7 @@ def main(data_path, ckpt_dir, eval_dir, out_dir, holdout=64,
 
 
 if __name__ == "__main__":
-    from fdtd2d_tpu.utils.cache import enable_compilation_cache
+    from fdtd2d.utils.cache import enable_compilation_cache
 
     enable_compilation_cache()
     a = sys.argv[1:]

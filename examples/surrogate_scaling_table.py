@@ -2,9 +2,8 @@
 
 Collates holdout reports (examples/surrogate_report.py output npz) from
 runs trained on different unique-scene counts / seeds into one markdown
-table — the deliverable VERDICT r3 item 1 asks for: per-run holdout
-ensemble-readout Pearson correlation, so the 10k-scene ceiling
-(STATUS.md limitation 5) can be compared against the 50k-scene runs
+table: per-run holdout ensemble-readout Pearson correlation, so the
+10k-scene ceiling (ROADMAP, known limitation 5) can be compared against the 50k-scene runs
 seed-by-seed rather than via one lucky basin.
 
 Usage: python examples/surrogate_scaling_table.py LABEL=REPORT.npz ...

@@ -10,11 +10,11 @@ Run: python examples/tiled_vs_direct.py
 import numpy as np
 import jax.numpy as jnp
 
-from fdtd2d_tpu import constants
-from fdtd2d_tpu.fdfd import run_fdfd
-from fdtd2d_tpu.fdfd.tiled import run_fdfd_tiled
-from fdtd2d_tpu.viz import plot_Ez
-from fdtd2d_tpu.viz.plots import plot_ref_v_inference
+from fdtd2d import constants
+from fdtd2d.fdfd import run_fdfd
+from fdtd2d.fdfd.tiled import run_fdfd_tiled
+from fdtd2d.viz import plot_Ez
+from fdtd2d.viz.plots import plot_ref_v_inference
 
 
 def main():
@@ -29,8 +29,8 @@ def main():
     print(f"global solve residual: {float(direct.relative_residual):.2e}")
 
     # krylov mode: two-level ORAS+PoU preconditioner + f64 iterative
-    # refinement — converges to ~1e-9 TRUE residual in complex64 on the TPU
-    # (the pre-round-2 one-level RAS stalled at ~0.7 here). The stationary
+    # refinement — converges to ~1e-9 TRUE residual in complex64 (a
+    # one-level RAS stalls at ~0.7 here). The stationary
     # modes reproduce the reference's approximate behavior.
     tiled, trace = run_fdfd_tiled(eps, mu, dx, dx, omega, source,
                                   patch_size=100, padding=30, mode="krylov",
@@ -47,7 +47,7 @@ def main():
 
 
 if __name__ == "__main__":
-    from fdtd2d_tpu.utils.cache import enable_compilation_cache
+    from fdtd2d.utils.cache import enable_compilation_cache
 
     enable_compilation_cache()
     main()

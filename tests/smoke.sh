@@ -12,7 +12,7 @@ import warnings
 import numpy as np
 import jax.numpy as jnp
 
-from fdtd2d_tpu import constants
+from fdtd2d import constants
 
 N = 32  # even on purpose: the even-grid stacked path is the default mode
 eps = np.full((N, N), constants.EPSILON_0)
@@ -23,8 +23,8 @@ omega = 30e9
 src = np.zeros((N, N), np.complex64)
 src[N // 2, N // 2] = 1.0
 
-from fdtd2d_tpu.fdfd.direct import DirectSolver, factor_stacked, solve_stacked
-from fdtd2d_tpu.ops.helmholtz import make_operator
+from fdtd2d.fdfd.direct import DirectSolver, factor_stacked, solve_stacked
+from fdtd2d.ops.helmholtz import make_operator
 
 op = make_operator(jnp.asarray(eps), jnp.asarray(mu), dx, dy, omega,
                    pml_thickness=6)
@@ -67,7 +67,7 @@ check("direct:odd-grid", run_odd)
 
 # tiled Schwarz solver
 def run_tiled():
-    from fdtd2d_tpu.fdfd.tiled import TiledSolver
+    from fdtd2d.fdfd.tiled import TiledSolver
     s = TiledSolver(eps, mu, dx, dy, omega, patch_size=16, padding=8,
                     pml_thickness=4, global_pml_thickness=6)
     x, trace = s.solve(jnp.asarray(src), solver_maxiter=8,
@@ -77,7 +77,7 @@ check("tiled", run_tiled)
 
 # time-domain solver
 def run_td():
-    from fdtd2d_tpu.fdfd.timedomain import TimeDomainSolver
+    from fdtd2d.fdfd.timedomain import TimeDomainSolver
     s = TimeDomainSolver(eps, mu, dx, dy, omega, pml_thickness=6,
                          transits=0.5)
     x, _ = s.solve(jnp.asarray(src), max_refine_rounds=2)
@@ -86,7 +86,7 @@ check("timedomain", run_td)
 
 # FDTD rollout (pure-JAX backend)
 def run_fdtd():
-    from fdtd2d_tpu.fdtd.simulate import FDTDConfig, simulate
+    from fdtd2d.fdtd.simulate import FDTDConfig, simulate
     cfg = FDTDConfig(dt=1e-12, dx=1e-3, nsteps=8, source_xy=(N // 2, N // 2),
                      source_fc=17e9, backend="jax")
     (Ez, Hx, Hy), _ = simulate(eps.astype(np.float32), mu.astype(np.float32), cfg)

@@ -6,12 +6,12 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from fdtd2d_tpu import constants
+from fdtd2d import constants
 
 
 @pytest.mark.slow
 def test_cli_datagen_train_roundtrip(tmp_path, monkeypatch, capsys):
-    from fdtd2d_tpu.cli import main
+    from fdtd2d.cli import main
 
     monkeypatch.chdir(tmp_path)
     assert main(["datagen", "--samples", "6", "--size", "48", "--batch", "6",
@@ -29,7 +29,7 @@ def test_cli_datagen_train_roundtrip(tmp_path, monkeypatch, capsys):
     assert "holdout rel-L2" in out
     assert any(d.startswith("epoch_") for d in os.listdir("ck"))
     # the reference's noise-schedule grid + eval panel + holdout metrics all
-    # land in the eval dir (VERDICT r2 missing item 3 / item 4)
+    # land in the eval dir
     assert os.path.exists("ev/noise_schedule.png")
     assert os.path.exists("ev/holdout_metrics.csv")
     assert any(d.startswith("eval_epoch_") for d in os.listdir("ev"))
@@ -38,7 +38,7 @@ def test_cli_datagen_train_roundtrip(tmp_path, monkeypatch, capsys):
 def test_rhs_conventions_are_linear_rescalings():
     """The reference drivers use three RHS conventions (omega, +i*omega,
     -i*omega — SURVEY.md C3); solutions must be exact complex rescalings."""
-    from fdtd2d_tpu.fdfd.solver import run_fdfd
+    from fdtd2d.fdfd.solver import run_fdfd
 
     N = 48
     rng = np.random.default_rng(2)

@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from fdtd2d_tpu.ops.cplx import (
+from fdtd2d.ops.cplx import (
     cdot, cnorm, cmatmul, to_device_complex, fetch_complex, czeros, cgather,
 )
 

@@ -11,9 +11,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from fdtd2d_tpu import constants
-from fdtd2d_tpu.ops.helmholtz import make_operator
-from fdtd2d_tpu.fdfd.direct import (
+from fdtd2d import constants
+from fdtd2d.ops.helmholtz import make_operator
+from fdtd2d.fdfd.direct import (
     DirectSolver, factor, five_point_coefficients, solve_direct,
     solve_factored,
 )
@@ -22,7 +22,7 @@ from fdtd2d_tpu.fdfd.direct import (
 def _hard_scene(N, seed=3):
     """Datagen-distribution binary 5x medium (the honest recipe pinned in
     core/scenes.py; fixed sigma=4 keeps features resolvable at test N)."""
-    from fdtd2d_tpu.core.scenes import hard_binary_scene
+    from fdtd2d.core.scenes import hard_binary_scene
 
     return hard_binary_scene(N, seed=seed, sigma=4.0, source_amp=10.0)
 
@@ -102,10 +102,10 @@ def test_direct_solver_c64_refined_hard_scene():
 
     # independent f64 residual of the split solution
     xs, tr2 = solver.solve(src, refine_target=1e-8, return_split=True)
-    from fdtd2d_tpu.ops.splitc import snorm
+    from fdtd2d.ops.splitc import snorm
 
     b = -1j * omega * np.asarray(src, np.complex128)
-    from fdtd2d_tpu.ops.splitc import split_from_numpy
+    from fdtd2d.ops.splitc import split_from_numpy
 
     r = solver.op64.residual(split_from_numpy(b), xs)
     rel = float(snorm(r)) / np.linalg.norm(b)
@@ -135,8 +135,8 @@ def test_direct_batched_vmap():
 def test_direct_sharded_sublattices_match_single_device():
     """The four independent sublattices sharded over a 4-device mesh axis
     must reproduce the single-device factored solve exactly."""
-    from fdtd2d_tpu.parallel.mesh import make_mesh
-    from fdtd2d_tpu.parallel.direct_sharded import (
+    from fdtd2d.parallel.mesh import make_mesh
+    from fdtd2d.parallel.direct_sharded import (
         factor_sharded, solve_factored_sharded)
 
     N, dx, omega = 96, 1e-3, 17e9
@@ -160,7 +160,7 @@ def test_direct_sharded_sublattices_match_single_device():
 def test_checkpointed_matches_full_factor():
     """Segment-checkpointed factor/solve (the past-the-memory-wall path)
     reproduces the store-all-W solve exactly."""
-    from fdtd2d_tpu.fdfd.direct import factor_checkpointed, solve_checkpointed
+    from fdtd2d.fdfd.direct import factor_checkpointed, solve_checkpointed
 
     N, dx, omega = 64, 1e-3, 17e9
     eps, mu, src = _hard_scene(N)
@@ -182,7 +182,7 @@ def test_checkpointed_matches_full_factor():
 def test_checkpointed_memory_shape():
     """The checkpointed factors store nseg+1 inverses per sublattice, not
     nr (the whole point)."""
-    from fdtd2d_tpu.fdfd.direct import factor_checkpointed
+    from fdtd2d.fdfd.direct import factor_checkpointed
 
     N, dx, omega = 64, 1e-3, 17e9
     eps, mu, _ = _hard_scene(N)
@@ -196,8 +196,8 @@ def test_checkpointed_memory_shape():
 def test_direct_sharded_checkpointed_matches_single_device():
     """Sharded + segment-checkpointed factors (both memory levers composed)
     reproduce the store-all single-device solve exactly."""
-    from fdtd2d_tpu.parallel.mesh import make_mesh
-    from fdtd2d_tpu.parallel.direct_sharded import (
+    from fdtd2d.parallel.mesh import make_mesh
+    from fdtd2d.parallel.direct_sharded import (
         factor_sharded, solve_factored_sharded)
 
     N, dx, omega = 96, 1e-3, 17e9
@@ -247,8 +247,8 @@ def test_compressed_factors_match_dense_and_refine():
     accurate to the range-finder tolerance, the refined production path
     reaches the same true residuals as the dense store, and the store is
     actually smaller."""
-    from fdtd2d_tpu.fdfd import compressed as comp
-    from fdtd2d_tpu.ops.helmholtz import make_operator
+    from fdtd2d.fdfd import compressed as comp
+    from fdtd2d.ops.helmholtz import make_operator
 
     N, dx, omega = 160, 1e-3, 24e9
     eps, mu, src = _hard_scene(N)
@@ -286,9 +286,9 @@ def test_direct_sharded_compressed_matches_single_device():
     """HODLR-compressed factors sharded over the 4-device sublattice axis
     reproduce the single-device compressed backsolve and stay range-finder
     accurate against the exact solve."""
-    from fdtd2d_tpu.fdfd import compressed as comp
-    from fdtd2d_tpu.parallel.mesh import make_mesh
-    from fdtd2d_tpu.parallel.direct_sharded import (
+    from fdtd2d.fdfd import compressed as comp
+    from fdtd2d.parallel.mesh import make_mesh
+    from fdtd2d.parallel.direct_sharded import (
         factor_sharded, solve_factored_sharded)
 
     N, dx, omega = 160, 1e-3, 24e9
@@ -321,8 +321,8 @@ def test_compressed_power_iteration_and_stacked_path():
     error vs the dense store at the same rank/storage), and the stacked
     single-device path (what DirectSolver uses on even grids — one batched
     scan over the 4 sublattices) matches the per-sublattice loop exactly."""
-    from fdtd2d_tpu.fdfd import compressed as comp
-    from fdtd2d_tpu.fdfd.direct import _solve_stacked, stack_coefficients
+    from fdtd2d.fdfd import compressed as comp
+    from fdtd2d.fdfd.direct import _solve_stacked, stack_coefficients
 
     N, dx, omega = 160, 1e-3, 24e9
     eps, mu, src = _hard_scene(N)
@@ -355,7 +355,7 @@ def test_compressed_power_iteration_and_stacked_path():
     assert rel < 1e-6, f"stacked vs loop compressed solve: {rel:.2e}"
 
     # stacked dense path (the DirectSolver default on even grids)
-    from fdtd2d_tpu.fdfd.direct import factor_stacked, solve_stacked
+    from fdtd2d.fdfd.direct import factor_stacked, solve_stacked
 
     x_stacked_dense = solve_stacked(factor_stacked(op), b)
     rel2 = float(jnp.linalg.norm(x_stacked_dense - x_dense)

@@ -1,6 +1,6 @@
 """Adjoint-solve VJP vs dense-solve autodiff oracle.
 
-The custom_vjp in fdtd2d_tpu/fdfd/autodiff.py must produce the same gradients
+The custom_vjp in fdtd2d/fdfd/autodiff.py must produce the same gradients
 as differentiating straight through ``jnp.linalg.solve`` on the densified
 operator (which JAX knows how to do exactly).
 """
@@ -9,9 +9,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from fdtd2d_tpu import constants
-from fdtd2d_tpu.ops.helmholtz import make_operator
-from fdtd2d_tpu.fdfd.autodiff import solve_helmholtz_differentiable
+from fdtd2d import constants
+from fdtd2d.ops.helmholtz import make_operator
+from fdtd2d.fdfd.autodiff import solve_helmholtz_differentiable
 
 N, DX, OMEGA, PML = 24, 1e-3, 17e9, 6
 
@@ -34,7 +34,7 @@ def _scene():
 
 def _fdm_M():
     """Preconditioner built once from the concrete scene (outside any trace)."""
-    from fdtd2d_tpu.ops.fdm import fdm_preconditioner_for
+    from fdtd2d.ops.fdm import fdm_preconditioner_for
 
     eps, mu, _ = _scene()
     op = make_operator(eps, mu, DX, DX, OMEGA, pml_thickness=PML, dtype=jnp.complex128)

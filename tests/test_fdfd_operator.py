@@ -11,9 +11,9 @@ import scipy.sparse as sp
 import jax.numpy as jnp
 import pytest
 
-from fdtd2d_tpu import constants
-from fdtd2d_tpu.ops.helmholtz import make_operator, pml_sigma_profile
-from fdtd2d_tpu.fdfd.solver import solve_fdfd, run_fdfd
+from fdtd2d import constants
+from fdtd2d.ops.helmholtz import make_operator, pml_sigma_profile
+from fdtd2d.fdfd.solver import solve_fdfd, run_fdfd
 
 
 def scipy_make_A(eps, mu, dx, dy, Nx, Ny, omega, pml_thickness=40, sigma_max=2, m=3):

@@ -10,10 +10,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from fdtd2d_tpu.fdtd.reference import numpy_step, numpy_simulate
-from fdtd2d_tpu.fdtd.step import fdtd_step, precompute_coefficients
-from fdtd2d_tpu.fdtd.simulate import simulate, FDTDConfig
-from fdtd2d_tpu import constants
+from fdtd2d.fdtd.reference import numpy_step, numpy_simulate
+from fdtd2d.fdtd.step import fdtd_step, precompute_coefficients
+from fdtd2d.fdtd.simulate import simulate, FDTDConfig
+from fdtd2d import constants
 
 
 def _sequential_reference_step(Ez, Hx, Hy, eps, mu, dt, dx):
@@ -119,7 +119,7 @@ def test_snapshot_frames_match_streamed_rollout():
 
 
 def test_simulate_batched_matches_per_scene():
-    from fdtd2d_tpu.fdtd.simulate import simulate_batched
+    from fdtd2d.fdtd.simulate import simulate_batched
 
     rows = cols = 48
     eps1 = np.full((rows, cols), constants.EPSILON_0)
@@ -139,7 +139,7 @@ def test_simulate_batched_matches_per_scene():
 def test_simulate_batched_no_retrace():
     """Repeated sweeps with the same shapes/static config must reuse one
     compilation — even when dt/dx/fc change value (they are traced args)."""
-    from fdtd2d_tpu.fdtd.simulate import simulate_batched, _simulate_batched_core
+    from fdtd2d.fdtd.simulate import simulate_batched, _simulate_batched_core
 
     rows = cols = 32
     eps = np.full((2, rows, cols), constants.EPSILON_0)

@@ -4,7 +4,7 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from fdtd2d_tpu.apps.inverse_design import lowpass_problem, make_response_fn, optimize
+from fdtd2d.apps.inverse_design import lowpass_problem, make_response_fn, optimize
 
 
 @pytest.mark.slow

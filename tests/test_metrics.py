@@ -2,7 +2,7 @@
 
 import jax.numpy as jnp
 
-from fdtd2d_tpu.utils.metrics import Timer, throughput_gcells
+from fdtd2d.utils.metrics import Timer, throughput_gcells
 
 
 def test_timer_and_throughput():

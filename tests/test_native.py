@@ -4,11 +4,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from fdtd2d_tpu import constants
-from fdtd2d_tpu.fdtd.reference import numpy_step, numpy_simulate
-from fdtd2d_tpu.ops.helmholtz import make_operator
+from fdtd2d import constants
+from fdtd2d.fdtd.reference import numpy_step, numpy_simulate
+from fdtd2d.ops.helmholtz import make_operator
 
-native = pytest.importorskip("fdtd2d_tpu.native")
+native = pytest.importorskip("fdtd2d.native")
 
 if not native.available():  # pragma: no cover
     pytest.skip("native toolchain unavailable", allow_module_level=True)

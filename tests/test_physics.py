@@ -3,10 +3,10 @@
 import numpy as np
 import jax.numpy as jnp
 
-from fdtd2d_tpu import constants
-from fdtd2d_tpu.fdtd.simulate import simulate, FDTDConfig
-from fdtd2d_tpu.ops.helmholtz import make_operator
-from fdtd2d_tpu.fdfd.solver import solve_fdfd
+from fdtd2d import constants
+from fdtd2d.fdtd.simulate import simulate, FDTDConfig
+from fdtd2d.ops.helmholtz import make_operator
+from fdtd2d.fdfd.solver import solve_fdfd
 
 
 def test_mur_boundary_absorbs_energy():

@@ -5,20 +5,22 @@ single-device results exactly (same program, partitioned by GSPMD) or to
 roundoff (explicit shard_map halos).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import jax
 import jax.numpy as jnp
 from jax.sharding import PartitionSpec as P, NamedSharding
 
-from fdtd2d_tpu import constants
-from fdtd2d_tpu.parallel import (
+from fdtd2d import constants
+from fdtd2d.parallel import (
     make_mesh, shard_operator, solve_fdfd_sharded, simulate_sharded,
     sharded_matvec_shardmap,
 )
-from fdtd2d_tpu.ops.helmholtz import make_operator
-from fdtd2d_tpu.fdfd.solver import solve_fdfd
-from fdtd2d_tpu.fdtd.simulate import simulate, FDTDConfig
+from fdtd2d.ops.helmholtz import make_operator
+from fdtd2d.fdfd.solver import solve_fdfd
+from fdtd2d.fdtd.simulate import simulate, FDTDConfig
 
 
 def test_mesh_shapes():
@@ -97,8 +99,8 @@ def test_sharded_tiled_solve_matches_single_device():
     single-device two-level krylov solve."""
     import jax.numpy as jnp
 
-    from fdtd2d_tpu.fdfd.tiled import run_fdfd_tiled
-    from fdtd2d_tpu.parallel.tiled_sharded import run_fdfd_tiled_sharded
+    from fdtd2d.fdfd.tiled import run_fdfd_tiled
+    from fdtd2d.parallel.tiled_sharded import run_fdfd_tiled_sharded
 
     N, dx, omega = 160, 1e-3, 17e9
     eps = np.full((N, N), constants.EPSILON_0)
@@ -145,40 +147,42 @@ def test_sharded_fdtd_matches_single_device():
 
 
 def test_sharded_ttiled_fdtd_matches_oracle():
-    """VERDICT r2 item 1: the sharded FDTD path runs the temporally-tiled
-    Pallas kernel (interpret mode on the CPU mesh) with ppermute halo
-    exchange — parity vs the float64 NumPy oracle, not just vs the jax path.
+    """The row-sharded K-step path (shard_map + ppermute ghost rows around
+    the sweep, here its plain-JAX reference) against the float64 NumPy
+    oracle, not just the jax path.
 
-    64 rows over 8 devices -> ln=8, so the plan resolves K=8, PH=8: every
-    device is a single panel and ALL panel halos cross chip boundaries."""
-    from fdtd2d_tpu.fdtd.reference import numpy_simulate
-    from fdtd2d_tpu.parallel.fdtd_sharded import (
-        plan_sharded_ttiled, simulate_sharded_ttiled)
+    128 rows over 8 devices -> ln=16 rows each with K=12 ghost rows, so
+    every sweep's halo crosses device boundaries."""
+    from fdtd2d.fdtd.reference import numpy_simulate
+    from fdtd2d.parallel.fdtd_sharded import (
+        plan_sharded_kstep, simulate_sharded_kstep)
 
-    N, M = 64, 128
+    N, M = 128, 128
     eps = np.full((N, M), constants.EPSILON_0)
     eps[20:40, 50:70] *= 3.0
     mu = np.full((N, M), constants.MU_0)
-    src, fc, steps = (N // 2, M // 2), 30e9, 20
+    src, fc, steps = (N // 2, M // 2), 30e9, 30
 
-    assert plan_sharded_ttiled(N, M, 8) == (8, 8, 8)
+    assert plan_sharded_kstep(N, M, 8) == 12
+    assert plan_sharded_kstep(64, M, 8) is None      # 8 own rows < K
     mesh = make_mesh((8,), axis_names=("x",))
     cfg = FDTDConfig(dt=5e-14, dx=1e-4, nsteps=steps, source_xy=src,
                      source_fc=fc)
-    (Ez, Hx, Hy), _ = simulate_sharded_ttiled(eps, mu, cfg, mesh)
+    (Ez, Hx, Hy), _ = simulate_sharded_kstep(eps, mu, cfg, mesh,
+                                             impl="reference")
     ref = numpy_simulate(eps, mu, 5e-14, 1e-4, steps, src, fc)
     err = np.max(np.abs(np.asarray(Ez, np.float64) - ref)) / np.max(np.abs(ref))
-    assert err < 1e-5, f"sharded ttiled field error vs oracle: {err:.3e}"
+    assert err < 1e-5, f"sharded kstep field error vs oracle: {err:.3e}"
     assert Hx.shape == (N, M - 1) and Hy.shape == (N - 1, M)
 
 
 def test_sharded_ttiled_source_on_device_boundary():
-    """Source row in one device's own rows and another's ppermute'd halo:
-    the dynamic src_g ownership rule must inject exactly once globally."""
-    from fdtd2d_tpu.fdtd.reference import numpy_simulate
-    from fdtd2d_tpu.parallel.fdtd_sharded import simulate_sharded_ttiled
+    """Source row in one device's own rows and another's ghost rows: the
+    device-local source row must inject exactly once globally."""
+    from fdtd2d.fdtd.reference import numpy_simulate
+    from fdtd2d.parallel.fdtd_sharded import simulate_sharded_kstep
 
-    N, M = 64, 128
+    N, M = 128, 128
     eps = np.full((N, M), constants.EPSILON_0)
     mu = np.full((N, M), constants.MU_0)
     src, fc, steps = (31, 9), 30e9, 19   # device boundary at row 32; rem sweep
@@ -186,82 +190,40 @@ def test_sharded_ttiled_source_on_device_boundary():
     mesh = make_mesh((8,), axis_names=("x",))
     cfg = FDTDConfig(dt=5e-14, dx=1e-4, nsteps=steps, source_xy=src,
                      source_fc=fc)
-    (Ez, _, _), _ = simulate_sharded_ttiled(eps, mu, cfg, mesh)
+    (Ez, _, _), _ = simulate_sharded_kstep(eps, mu, cfg, mesh,
+                                           impl="reference")
     ref = numpy_simulate(eps, mu, 5e-14, 1e-4, steps, src, fc)
     err = np.max(np.abs(np.asarray(Ez, np.float64) - ref)) / np.max(np.abs(ref))
-    assert err < 1e-5, f"boundary-source sharded ttiled error: {err:.3e}"
+    assert err < 1e-5, f"boundary-source sharded kstep error: {err:.3e}"
 
 
 def test_simulate_sharded_dispatches_to_ttiled():
-    """simulate_sharded no longer pins backend='jax': on an admissible 1D
-    mesh the auto backend must take the kernel path and match the jax path;
-    snapshots ride along."""
-    N, M = 64, 128
+    """simulate_sharded takes the kernel path only where the kernel runs:
+    on the CPU ``auto`` is the GSPMD jax path and ``kstep`` is refused.
+    The kernel path's decomposition (reference sweep) matches the jax path
+    with snapshots riding along."""
+    from fdtd2d.parallel.fdtd_sharded import simulate_sharded_kstep
+
+    N, M = 128, 128
     eps, mu, _ = _scene(N)
     eps = np.broadcast_to(eps[:, :1], (N, M)).copy()
     mu = np.full((N, M), constants.MU_0)
-    cfg = FDTDConfig(dt=5e-14, dx=1e-4, nsteps=32, source_xy=(32, 64),
+    cfg = FDTDConfig(dt=5e-14, dx=1e-4, nsteps=48, source_xy=(32, 64),
                      source_fc=30e9, nframes=2, backend="auto")
     mesh = make_mesh((8,), axis_names=("x",))
     (got, _, _), snaps = simulate_sharded(eps, mu, cfg, mesh)
+    (kgot, _, _), ksnaps = simulate_sharded_kstep(eps, mu, cfg, mesh,
+                                                  impl="reference")
     assert snaps is not None and snaps.shape == (2, N, M)
+    assert ksnaps is not None and ksnaps.shape == (2, N, M)
 
-    cfgj = FDTDConfig(dt=5e-14, dx=1e-4, nsteps=32, source_xy=(32, 64),
+    cfgj = FDTDConfig(dt=5e-14, dx=1e-4, nsteps=48, source_xy=(32, 64),
                       source_fc=30e9, backend="jax")
     (want, _, _), _ = simulate(eps, mu, cfgj)
-    err = np.max(np.abs(np.asarray(got) - np.asarray(want)))
     scale = np.max(np.abs(np.asarray(want)))
-    assert err / scale < 1e-5, f"ttiled-sharded vs jax mismatch: {err/scale:.2e}"
-
-
-def test_sharded_ttiled_2d_matches_oracle():
-    """VERDICT r3 item 8: 2D-mesh kernel-speed sharded FDTD — the
-    temporally-tiled Pallas kernel per device block with TWO-PHASE ppermute
-    halo exchange (columns first, so the full-width row sends fill the
-    corner ghosts). Parity vs the float64 NumPy oracle on a 2x4 CPU mesh,
-    with the SOURCE ON A DEVICE CORNER (all four adjacent devices inject
-    into own or halo cells; the own-block extraction keeps it exactly
-    once)."""
-    from fdtd2d_tpu.fdtd.reference import numpy_simulate
-    from fdtd2d_tpu.parallel.fdtd_sharded import (
-        plan_sharded_ttiled_2d, simulate_sharded_ttiled_2d)
-
-    N, M = 64, 512
-    eps = np.full((N, M), constants.EPSILON_0)
-    eps[20:40, 100:300] *= 3.0
-    mu = np.full((N, M), constants.MU_0)
-    # (32, 256): row 32 = boundary of the two row-blocks (ln=32), col 256 =
-    # boundary of column blocks 1|2 (lm=128) -> a true 4-device corner
-    src, fc, steps = (N // 2, M // 2), 30e9, 20
-
-    plan = plan_sharded_ttiled_2d(N, M, 2, 4)
-    assert plan is not None
-    K, GH, PH, GW = plan
-    assert GW >= K
-    mesh = make_mesh((2, 4), axis_names=("r", "c"))
-    cfg = FDTDConfig(dt=5e-14, dx=1e-4, nsteps=steps, source_xy=src,
-                     source_fc=fc)
-    (Ez, Hx, Hy), snaps = simulate_sharded_ttiled_2d(eps, mu, cfg, mesh)
-    ref = numpy_simulate(eps, mu, 5e-14, 1e-4, steps, src, fc)
-    err = np.max(np.abs(np.asarray(Ez, np.float64) - ref)) / np.max(np.abs(ref))
-    assert err < 1e-5, f"2D sharded ttiled field error vs oracle: {err:.3e}"
-    assert Hx.shape == (N, M - 1) and Hy.shape == (N - 1, M)
-    assert snaps is None
-
-
-def test_simulate_sharded_dispatches_to_ttiled_2d():
-    """simulate_sharded routes admissible 2D meshes to the 2D ttiled path
-    (round 3 fell back to the ~12x-slower GSPMD jax step there)."""
-    N, M = 64, 512
-    eps = np.full((N, M), constants.EPSILON_0)
-    mu = np.full((N, M), constants.MU_0)
-    mesh = make_mesh((2, 4), axis_names=("r", "c"))
-    cfg = FDTDConfig(dt=5e-14, dx=1e-4, nsteps=16, source_xy=(31, 200),
-                     source_fc=30e9)
-    (got, _, _), snaps = simulate_sharded(eps, mu, cfg, mesh)
-
-    from fdtd2d_tpu.fdtd.reference import numpy_simulate
-
-    ref = numpy_simulate(eps, mu, 5e-14, 1e-4, 16, (31, 200), 30e9)
-    err = np.max(np.abs(np.asarray(got, np.float64) - ref)) / np.max(np.abs(ref))
-    assert err < 1e-5, f"dispatched 2D sharded error: {err:.3e}"
+    for g in (got, kgot):
+        err = np.max(np.abs(np.asarray(g) - np.asarray(want)))
+        assert err / scale < 1e-5, f"sharded vs jax mismatch: {err/scale:.2e}"
+    with pytest.raises(RuntimeError, match="only on an NVIDIA GPU"):
+        simulate_sharded(eps, mu, dataclasses.replace(cfg, backend="kstep"),
+                         mesh)

@@ -8,7 +8,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from fdtd2d_tpu.ops.sparse import (
+from fdtd2d.ops.sparse import (
     CSR, _diags, _kron, _sp_matmul, _sp_add, _spsolve, from_scipy,
     make_A_jax, solve_linear, sparse_solve,
 )

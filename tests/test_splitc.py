@@ -3,9 +3,9 @@
 import numpy as np
 import jax.numpy as jnp
 
-from fdtd2d_tpu import constants
-from fdtd2d_tpu.ops.helmholtz import make_operator
-from fdtd2d_tpu.ops.splitc import (
+from fdtd2d import constants
+from fdtd2d.ops.helmholtz import make_operator
+from fdtd2d.ops.splitc import (
     Split, make_operator_f64, f64_operator_for, split_from_numpy,
     split_to_complex, snorm,
 )
@@ -54,8 +54,8 @@ def test_f64_operator_for_roundtrip():
 def test_run_fdfd_refined_beats_c64_floor():
     """run_fdfd(refine_target=...) pushes the TRUE residual far below what a
     raw complex64 solve attains, using c64 inner solves only."""
-    from fdtd2d_tpu import constants
-    from fdtd2d_tpu.fdfd.solver import run_fdfd
+    from fdtd2d import constants
+    from fdtd2d.fdfd.solver import run_fdfd
 
     N, dx, omega = 128, 1e-3, 17e9
     eps = np.full((N, N), constants.EPSILON_0)
@@ -92,12 +92,12 @@ def test_split_helpers():
 
 def test_snorm_overflow_safe():
     """snorm must not overflow for entries whose SQUARES exceed the dtype
-    range. On the real TPU, f64 is emulated as f32 pairs (f32 exponent
-    range ~1e38), so an FDFD right-hand side with -1j*omega applied twice
-    (~3e20; squares ~8e40) turned every refinement trace to NaN — found
-    round 5 driving DirectSolver.solve on chip. On CPU the same bug
+    range. Where f64 is emulated as f32 pairs (f32 exponent range ~1e38),
+    an FDFD right-hand side with -1j*omega applied twice (~3e20; squares
+    ~8e40) turned every refinement trace to NaN — found driving
+    DirectSolver.solve on an accelerator. On CPU the same bug
     reproduces at ~1e200 (squares past the true f64 range)."""
-    from fdtd2d_tpu.ops.splitc import Split, snorm, snorm_batched
+    from fdtd2d.ops.splitc import Split, snorm, snorm_batched
 
     big = np.full((4, 4), 3.0e200)
     s = Split(jnp.asarray(big), jnp.asarray(big))

@@ -10,10 +10,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from fdtd2d_tpu import constants
-from fdtd2d_tpu.fdfd.timedomain import TimeDomainSolver
-from fdtd2d_tpu.parallel.mesh import make_mesh
-from fdtd2d_tpu.parallel.timedomain_sharded import (
+from fdtd2d import constants
+from fdtd2d.fdfd.timedomain import TimeDomainSolver
+from fdtd2d.parallel.mesh import make_mesh
+from fdtd2d.parallel.timedomain_sharded import (
     TimeDomainSolverSharded, shard_wave_bundle,
 )
 

@@ -5,9 +5,9 @@ import os
 import numpy as np
 import jax.numpy as jnp
 
-from fdtd2d_tpu import constants
-from fdtd2d_tpu.viz.render import field_to_rgb, capture_snapshot, save_frames, render_video
-from fdtd2d_tpu.viz.plots import (
+from fdtd2d import constants
+from fdtd2d.viz.render import field_to_rgb, capture_snapshot, save_frames, render_video
+from fdtd2d.viz.plots import (
     plot_sparsity, plot_convergence, plot_ref_v_inference, plot_noisy_sample,
     plot_frequency_response,
 )
@@ -45,7 +45,7 @@ def test_render_video_gif_fallback(tmp_path):
 
 
 def test_plots_write_files(tmp_path):
-    from fdtd2d_tpu.ops.sparse import make_A_jax
+    from fdtd2d.ops.sparse import make_A_jax
 
     A = make_A_jax(jnp.ones((12, 12)), jnp.ones((12, 12)), 1.0, 1.0, 12, 12,
                    1.0, pml_thickness=3)
@@ -55,8 +55,8 @@ def test_plots_write_files(tmp_path):
     plot_noisy_sample(np.zeros((3, 8, 8)), str(tmp_path / "noisy.png"))
     plot_frequency_response([1, 2, 3], [1.0, 0.5, 0.1], [1, 0, 0],
                             str(tmp_path / "fr.png"))
-    from fdtd2d_tpu.fdfd.tiled import generate_patches, bfs_order
-    from fdtd2d_tpu.viz.plots import plot_patch_distances
+    from fdtd2d.fdfd.tiled import generate_patches, bfs_order
+    from fdtd2d.viz.plots import plot_patch_distances
 
     src = np.zeros((160, 160)); src[80, 80] = 1.0
     origins = generate_patches(160, 160, 64, 16)
@@ -68,7 +68,7 @@ def test_plots_write_files(tmp_path):
 
 
 def test_cli_fdtd_and_fdfd(tmp_path, monkeypatch, capsys):
-    from fdtd2d_tpu.cli import main
+    from fdtd2d.cli import main
 
     monkeypatch.chdir(tmp_path)
     assert main(["fdtd", "--size", "64", "--steps", "40", "--frames", "4",
@@ -85,7 +85,7 @@ def test_cli_fdtd_and_fdfd(tmp_path, monkeypatch, capsys):
 
 
 def test_cli_tiled_plot_patches(tmp_path, monkeypatch, capsys):
-    from fdtd2d_tpu.cli import main
+    from fdtd2d.cli import main
 
     monkeypatch.chdir(tmp_path)
     assert main(["tiled", "--size", "160", "--omega", "17e9",
@@ -97,8 +97,8 @@ def test_cli_tiled_plot_patches(tmp_path, monkeypatch, capsys):
 
 
 def test_scene_container():
-    from fdtd2d_tpu.core.grid import Scene
-    from fdtd2d_tpu import constants
+    from fdtd2d.core.grid import Scene
+    from fdtd2d import constants
 
     s = Scene.vacuum(32, 48, dx=1e-3)
     assert s.shape == (32, 48) and s.dx == 1e-3
@@ -109,7 +109,7 @@ def test_scene_container():
 
 
 def test_cli_invdes(tmp_path, monkeypatch, capsys):
-    from fdtd2d_tpu.cli import main
+    from fdtd2d.cli import main
 
     monkeypatch.chdir(tmp_path)
     assert main(["invdes", "--size", "50", "--steps", "2", "--freqs", "2",
